@@ -88,7 +88,7 @@ def _grad64(times, mask, mu, ls_q, ls_p, kind, noise, h=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# chip path (fp32, Pallas covariance route)
+# device path (fp32 covariance route)
 # ---------------------------------------------------------------------------
 
 def _kl_chip(times, mask, mu, ls_q, ls_p, kernel, noise):

@@ -10,11 +10,11 @@ prints every 500 steps, plus final imputation metrics.
 Optionally (``--fp64-check-steps N``) audits the live trajectory against
 the fp64 reference-math oracle: every log interval during the first N
 steps, the ELBO at the *current* parameters is re-evaluated on a fixed
-probe batch both by the framework's fp32 Pallas path and by the fp64
+probe batch both by the framework's fp32 path and by the fp64
 numpy re-derivation of the reference formulas
 (gpvae_tpu.utils.reference_math — explicit matrix-inverse + logdet KL,
 src/Models/syndata/GP_VAE_syn_data.py:168-236), with the same latent
-draw.  The recorded max relative deviation bounds the fp32+Pallas vs
+draw.  The recorded max relative deviation bounds the fp32 vs
 fp64 divergence along a real training trajectory — the SURVEY §6
 consequence (1) evidence: "reproduce reference ELBO trajectories on the
 toy config".

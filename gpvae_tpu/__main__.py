@@ -142,11 +142,10 @@ def cmd_train(args):
         model, iter(batches), train_cfg, csv_path=args.csv,
         callbacks=callbacks,
     )
-    final = log.rows[-1] if log.rows else {}
-    print(
-        f"done at step {int(state.step)}: "
-        f"loss={final.get('loss', float('nan')):.4f}"
-    )
+    # a run resumed at or past --steps trains nothing and logs no loss
+    final = (f"loss={log.rows[-1]['loss']:.4f}" if log.rows
+             else "no steps left to run")
+    print(f"done at step {int(state.step)}: {final}")
 
 
 def cmd_evaluate(args):
@@ -279,6 +278,9 @@ def cmd_bench(_args):
 
 
 def main(argv=None):
+    from gpvae_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser(prog="gpvae_tpu")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -302,7 +304,7 @@ def main(argv=None):
     t.add_argument("--csv")
     t.add_argument("--log-every", type=int)
     t.add_argument("--steps-per-call", type=int,
-                   help="optimizer steps per jitted call (amortizes dispatch)")
+                   help="optimizer steps per jitted call (amortizes host work)")
     t.add_argument("--plots", help="directory for periodic training "
                    "artifacts (film strips / latent trajectories)")
     t.add_argument("--plots-every", type=int, default=10_000,

@@ -55,14 +55,14 @@ def generate_toy_data(
     * ``mask``  ``[N, T]`` bool observed-step mask (True = observed).
     """
     k_f, k_x, k_h, k_n = jax.random.split(key, 4)
-    # pinned fp32: this is the TPU-native generator, and the jitter below is
-    # sized for fp32 factorization (the x64 test env must not mask that)
+    # pinned fp32: the accelerator's working precision; the jitter below
+    # is sized for fp32 factorization (the x64 test env must not mask that)
     times = jnp.linspace(0.0, xmax, t, dtype=jnp.float32)
 
     # gpflow kernels carry no noise term; the factorization jitter must be
     # fp32-appropriate: the cosine gram is exactly rank 2 and the l=9 RBF
     # gram is near-singular, so a fp64-habit 1e-8 makes the fp32 Cholesky
-    # on TPU produce NaNs (and silently all-zero Bernoulli draws)
+    # produce NaNs (and silently all-zero Bernoulli draws)
     jitter = 1e-4 * jnp.eye(t, dtype=jnp.float32)
     k_rbf = kernels_lib.gram(times, 9.0, kernel="rbf", noise=0.0) + jitter
     k_cos = (

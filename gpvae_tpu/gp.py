@@ -8,7 +8,7 @@ Re-designs the reference's L1-L3 layers (SURVEY.md §1):
   B*Z fp64 {matrix_inverse, logdet, trace} subgraphs — becomes one batched
   solve-form KL with no explicit inverse and no determinant.
 * ``gp_vae_sample`` (…:147-166) — ragged split/slice/concat — becomes one
-  batched ``mu + L @ eps`` einsum on the MXU with explicit PRNG keys (fixing
+  batched ``mu + L @ eps`` einsum with explicit PRNG keys (fixing
   the reference's fresh-noise-per-fetch quirk, SURVEY.md §3.4).
 * diag-cov KL (src/Models/VAE_GPprior_diag_cov.py:73-119), standard VAE KL
   (src/Models/GP_recog_VAE_prior.py:65-70), and the GP-recognition sampler
@@ -33,119 +33,22 @@ import jax
 import jax.numpy as jnp
 
 from gpvae_tpu import kernels as kernels_lib
-from gpvae_tpu.ops import (
-    cholesky,
-    dispatch,
-    gram_chol_fused,
-    logdet_from_chol,
-    solve_triangular,
-    LANE_BATCH_MAX_T,
-)
+from gpvae_tpu.ops import cholesky, logdet_from_chol, solve_triangular
 from gpvae_tpu.ops.chol import cholesky_bwd_from_l
 
-# None = auto (TPU, up to trsm.INV_ROUTE_MAX_T — the triangular inverse is
-# lane-batched at T <= 64 and MXU block recursion above); tests override to
-# exercise the inverse-routed KL paths in interpreter mode on CPU
-FORCE_INVERSE_PATH: bool | None = None
-
-
-def _inverse_path(t: int) -> bool:
-    from gpvae_tpu.ops.trsm import INV_ROUTE_MAX_T
-
-    if FORCE_INVERSE_PATH is not None:
-        return FORCE_INVERSE_PATH and t <= INV_ROUTE_MAX_T
-    return dispatch.on_tpu() and t <= INV_ROUTE_MAX_T
-
-
-def _tri_tri_frob2(p: jnp.ndarray, q: jnp.ndarray) -> jnp.ndarray:
-    """``||P Q||_F^2`` over the last two axes for lower-triangular P, Q.
-
-    The product of two lower-triangular matrices is lower-triangular, so
-    one level of 2x2 blocking computes it with 4 half-size HIGHEST MXU
-    matmuls instead of the dense product's 8 — and the Frobenius norm is
-    accumulated per block, so the [.., T, T] product is never assembled
-    in HBM.  The auto-derived VJP inherits the halving (each blocked
-    matmul pulls back into two half-size matmuls).  Odd T falls back to
-    the dense einsum (MXU tiling alignment).
-    """
-    t = p.shape[-1]
-    if t % 256 != 0:
-        a = jnp.einsum(
-            "...ij,...jk->...ik", p, q,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        return jnp.sum(a * a, axis=(-2, -1))
-    h = t // 2
-    mm = functools.partial(
-        jnp.einsum, "...ij,...jk->...ik",
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    p11, p21, p22 = p[..., :h, :h], p[..., h:, :h], p[..., h:, h:]
-    q11, q21, q22 = q[..., :h, :h], q[..., h:, :h], q[..., h:, h:]
-    a11 = mm(p11, q11)
-    a21 = mm(p21, q11) + mm(p22, q21)
-    a22 = mm(p22, q22)
-    return (jnp.sum(a11 * a11, axis=(-2, -1))
-            + jnp.sum(a21 * a21, axis=(-2, -1))
-            + jnp.sum(a22 * a22, axis=(-2, -1)))
-
 
 # ---------------------------------------------------------------------------
-# Differentiable fused gram-bank Cholesky
+# Differentiable gram-bank Cholesky
 # ---------------------------------------------------------------------------
-
-def _chol_gram_bank_unfused(times, lengthscales, mask, variance, kernel,
-                            noise, method="auto"):
-    k = kernels_lib.gram_bank(
-        times, lengthscales, kernel=kernel, noise=noise, variance=variance,
-        mask=mask,
-    )
-    return cholesky(k, method=method)
-
-
-def _gram_chol_blocked(times, lengthscales, mask, variance, kernel, noise):
-    """Large-T fused path: flatten [B, T] x [Z] -> N = B*Z matrices and run
-    the blocked in-place factorization with gram tiles built in-kernel
-    (ops/pallas_big.cholesky_gram_inplace) — the [B, Z, T, T] gram never
-    exists in HBM (at T=1024 N=128: 537 MB write + 537 MB read deleted;
-    measured 6.39 -> 4.39 ms when introduced; ~13 TF/s current,
-    BASELINE.md round 3)."""
-    from gpvae_tpu.ops import pallas_big
-
-    b, t = times.shape
-    z = lengthscales.shape[-1]
-    n = b * z
-    f32 = jnp.float32
-    tt = jnp.broadcast_to(times[:, None, :], (b, z, t)).reshape(n, t)
-    if lengthscales.ndim == 1:
-        ls = jnp.broadcast_to(lengthscales[None, :], (b, z)).reshape(n)
-    else:
-        ls = lengthscales.reshape(n)
-    mk = (None if mask is None else
-          jnp.broadcast_to(mask[:, None, :], (b, z, t)).reshape(n, t))
-    var = jnp.asarray(variance, f32)
-    if var.ndim == 0:
-        var = jnp.full((n,), var, f32)
-    else:
-        var = jnp.broadcast_to(var[None, :], (b, z)).reshape(n)
-    l = pallas_big.cholesky_gram_inplace(
-        tt, ls, mk, var, kernel=kernel, noise=noise,
-    )
-    return l.reshape(b, z, t, t)
-
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6))
 def _chol_gram_bank_p(times, lengthscales, mask, variance, kernel, noise,
                       diff_times):
-    if times.shape[-1] <= LANE_BATCH_MAX_T:
-        return gram_chol_fused(
-            times, lengthscales, mask=mask, kernel=kernel, noise=noise,
-            variance=variance,
-        )
-    return _gram_chol_blocked(times, lengthscales, mask, variance, kernel,
-                              noise)
+    k = kernels_lib.gram_bank(
+        times, lengthscales, kernel=kernel, noise=noise, variance=variance,
+        mask=mask,
+    )
+    return jnp.linalg.cholesky(k)
 
 
 def _chol_gram_bank_fwd(times, lengthscales, mask, variance, kernel, noise,
@@ -165,12 +68,11 @@ def _chol_gram_bank_bwd(kernel, noise, diff_times, res, l_bar):
         )
 
     # The times cotangent is OPT-IN (``chol_gram_bank(diff_times=True)``):
-    # XLA cannot dead-code-eliminate it out of the fused vjp (the gram
-    # pullback entangles it with the lengthscale cotangent — measured ~12%
-    # of toy-config training throughput), and every shipped model treats
-    # observation times as data.  With the default, differentiating through
-    # times yields an explicit ZERO gradient here — not silently: this is
-    # the documented contract.
+    # XLA cannot dead-code-eliminate it out of the custom vjp (the gram
+    # pullback entangles it with the lengthscale cotangent), and every
+    # shipped model treats observation times as data.  With the default,
+    # differentiating through times yields an explicit ZERO gradient here —
+    # not silently: this is the documented contract.
     if diff_times:
         _, vjp = jax.vjp(gram_fn, times, lengthscales, variance)
         times_bar, ls_bar, var_bar = vjp(k_bar)
@@ -195,41 +97,20 @@ def chol_gram_bank(
     noise: float = kernels_lib.DEFAULT_NOISE,
     variance: jnp.ndarray | float = 1.0,
     diff_times: bool = False,
-    impl: str = "auto",
 ) -> jnp.ndarray:
     """Cholesky factors ``L [B, Z, T, T]`` of the per-latent gram bank.
 
-    The production entry point for the covariance subsystem: on TPU with
-    T <= 64 the gram is built and factored inside one Pallas kernel (the
-    ``[B,Z,T,T]`` gram never reaches HBM); otherwise it composes the batched
-    gram with the blocked/XLA Cholesky.  Differentiable w.r.t.
-    ``lengthscales`` and ``variance`` via the analytic Cholesky backward;
-    pass ``diff_times=True`` if you differentiate through the observation
-    times (learned time warps) — the default backward returns an explicit
-    zero for them, because the extra pullback costs ~12% of training
-    throughput and times are data in every shipped model.
-
-    ``impl`` selects the implementation as data (no module patching):
-    ``"auto"`` (fused Pallas on TPU, composed gram+XLA-chol elsewhere),
-    ``"fused"`` (force the Pallas path), or ``"xla"`` (force the composed
-    gram + ``jnp.linalg.cholesky`` path — the bench baseline, i.e. what a
-    straight TF->JAX translation of the reference would delegate to).
+    The production entry point for the covariance subsystem: the batched
+    gram (kernels.gram_bank) composed with the batched Cholesky.
+    Differentiable w.r.t. ``lengthscales`` and ``variance`` via the
+    analytic Cholesky backward; pass ``diff_times=True`` if you
+    differentiate through the observation times (learned time warps) —
+    the default backward returns an explicit zero for them, because times
+    are data in every shipped model and the extra pullback is not free.
     """
-    if impl not in ("auto", "fused", "xla"):
-        raise ValueError("impl must be auto, fused, or xla")
     variance = jnp.asarray(variance, jnp.float32)
-    if impl == "xla":
-        return _chol_gram_bank_unfused(times, lengthscales, mask, variance,
-                                       kernel, noise, method="xla")
-    if impl == "fused" or (
-            dispatch.on_tpu() and kernel in kernels_lib.KERNELS):
-        # T <= 64: lane-fused single kernel; larger T: blocked in-place
-        # factorization with gram tiles built in-kernel — either way the
-        # gram bank never exists in HBM
-        return _chol_gram_bank_p(times, lengthscales, mask, variance, kernel,
-                                 noise, diff_times)
-    return _chol_gram_bank_unfused(times, lengthscales, mask, variance,
-                                   kernel, noise)
+    return _chol_gram_bank_p(times, lengthscales, mask, variance, kernel,
+                             noise, diff_times)
 
 
 # ---------------------------------------------------------------------------
@@ -267,35 +148,15 @@ def gp_kl(
     if mask is not None:
         mu = mu * mask.astype(mu.dtype)[..., None]
     b, t = mu.shape[0], mu.shape[-2]
-    if _inverse_path(t):
-        # ONE lane-batched inverse of L_p, applied by MXU matmuls to both
-        # the trace term and the quad term (vs two separate trsm/inversions)
-        from gpvae_tpu.ops import pallas_tri
-        inv_p = pallas_tri.tri_inv(l_p)
-        tr = _tri_tri_frob2(inv_p, l_q)               # ||L_p^{-1} L_q||_F^2
-        if inv_p.shape[0] == 1 and b > 1:  # shared fixed-grid factor
-            v = jnp.einsum(
-                "zij,bjz->bzi", inv_p[0], mu,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        else:
-            v = jnp.einsum(
-                "bzij,bjz->bzi", inv_p, mu,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        quad = jnp.sum(v * v, axis=-1)
-    else:
-        a = solve_triangular(l_p, l_q)                # L_p^{-1} L_q
-        tr = jnp.sum(a * a, axis=(-2, -1))            # [B or 1, Z]
-        mu_bz = jnp.swapaxes(mu, -1, -2)[..., None]   # [B, Z, T, 1]
-        l_p_full = (
-            jnp.broadcast_to(l_p, (b,) + l_p.shape[1:])
-            if l_p.shape[0] == 1 and b > 1 else l_p
-        )
-        v = solve_triangular(l_p_full, mu_bz)
-        quad = jnp.sum(v * v, axis=(-2, -1))
+    a = solve_triangular(l_p, l_q)                # L_p^{-1} L_q
+    tr = jnp.sum(a * a, axis=(-2, -1))            # [B or 1, Z]
+    mu_bz = jnp.swapaxes(mu, -1, -2)[..., None]   # [B, Z, T, 1]
+    l_p_full = (
+        jnp.broadcast_to(l_p, (b,) + l_p.shape[1:])
+        if l_p.shape[0] == 1 and b > 1 else l_p
+    )
+    v = solve_triangular(l_p_full, mu_bz)
+    quad = jnp.sum(v * v, axis=(-2, -1))
     ld_p = logdet_from_chol(l_p)
     ld_q = logdet_from_chol(l_q)
     return 0.5 * (jnp.broadcast_to(tr, quad.shape) + quad - t
@@ -324,34 +185,15 @@ def gp_prior_diag_kl(
         mu = mu * m
         log_var = log_var * m  # masked -> log v = 0 -> v = 1
     b, t = mu.shape[0], mu.shape[-2]
-    if _inverse_path(t):
-        # W = L^{-1} I is literally the triangular inverse: one lane-batched
-        # kernel call, reused for both the trace diag and the quad term
-        from gpvae_tpu.ops import pallas_tri
-        w = pallas_tri.tri_inv(l_p)
-        if w.shape[0] == 1 and b > 1:
-            y = jnp.einsum(
-                "zij,bjz->bzi", w[0], mu,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        else:
-            y = jnp.einsum(
-                "bzij,bjz->bzi", w, mu,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        quad = jnp.sum(y * y, axis=-1)
-    else:
-        eye = jnp.broadcast_to(jnp.eye(t, dtype=l_p.dtype), l_p.shape)
-        w = solve_triangular(l_p, eye)                # [B or 1, Z, T, T]
-        mu_bz = jnp.swapaxes(mu, -1, -2)[..., None]
-        l_p_full = (
-            jnp.broadcast_to(l_p, (b,) + l_p.shape[1:])
-            if l_p.shape[0] == 1 and b > 1 else l_p
-        )
-        y = solve_triangular(l_p_full, mu_bz)
-        quad = jnp.sum(y * y, axis=(-2, -1))
+    eye = jnp.broadcast_to(jnp.eye(t, dtype=l_p.dtype), l_p.shape)
+    w = solve_triangular(l_p, eye)                # [B or 1, Z, T, T]
+    mu_bz = jnp.swapaxes(mu, -1, -2)[..., None]
+    l_p_full = (
+        jnp.broadcast_to(l_p, (b,) + l_p.shape[1:])
+        if l_p.shape[0] == 1 and b > 1 else l_p
+    )
+    y = solve_triangular(l_p_full, mu_bz)
+    quad = jnp.sum(y * y, axis=(-2, -1))
     dinv = jnp.sum(w * w, axis=-2)                    # diag(K^{-1})
     v_bz = jnp.swapaxes(jnp.exp(log_var), -1, -2)     # [B, Z, T]
     tr = jnp.sum(jnp.broadcast_to(
@@ -378,7 +220,7 @@ def gp_kl_toeplitz_prior(
     instead of a dense O(T^3) *sequential* factorization of K_p, one O(T^2)
     Durbin scan yields its logdet AND the Gohberg-Semencul inverse
     representation ``K_p^{-1} = (A A^T - B B^T)/e`` whose application is
-    pure MXU matmuls:
+    matrix products:
 
         tr(K_p^{-1} K_q) = (||A^T L_q||_F^2 - ||B^T L_q||_F^2) / e
         mu^T K_p^{-1} mu = (||A^T mu||^2   - ||B^T mu||^2) / e
@@ -399,7 +241,7 @@ def gp_kl_toeplitz_prior(
     # anticausal correlation irfft(conj(rfft(col)) * rfft(y))[:T] is the
     # triangular-Toeplitz product in O(T log T) per column — the [Z, T, T]
     # A/B matrices never exist and the trace term costs O(Z T^2 log T)
-    # instead of dense O(Z T^3) MXU matmuls.
+    # instead of dense O(Z T^3) matmuls.
     m_fft = toeplitz._fft_len(t)
     fa = jnp.conj(jnp.fft.rfft(a_col, n=m_fft, axis=-1))   # [Z, M/2+1]
     fb = jnp.conj(jnp.fft.rfft(b_col, n=m_fft, axis=-1))
@@ -532,7 +374,7 @@ def gp_sample(
 ) -> jnp.ndarray:
     """Correlated reparameterized samples ``z = mu + (L eps)`` -> [S, B, T, Z].
 
-    One batched MXU einsum replacing the reference's per-sequence
+    One batched einsum replacing the reference's per-sequence
     transpose/split/slice/concat pipeline (``gp_vae_sample``,
     src/Models/syndata/GP_VAE_syn_data.py:147-166).  Noise comes from an
     explicit key — the reference's in-graph ``tf.random_normal`` re-draws on
@@ -643,7 +485,7 @@ def posterior_conditional(
 ) -> GPPosterior:
     """Batched GP conditioning p(z(t_query) | z(t_obs)) per latent dim.
 
-    The TPU-native form of the numpy imputation oracle
+    The batched JAX form of the numpy imputation oracle
     ``sample_given_part_latent``
     (src/Models/FullGP_and_GPdecoder_dynamic_time_analysis.py:40-56):
 

@@ -1,6 +1,6 @@
 """Stationary GP kernel functions and batched gram construction.
 
-TPU-native re-design of the reference's covariance construction
+Batched JAX re-design of the reference's covariance construction
 (`tf_kernel` / `build_kernels` / `approx_kernels` / `prior_kernels`,
 reference: src/Models/syndata/GP_VAE_syn_data.py:41-145 and the numpy copy
 `kernel_matrix` at src/Models/VAE_GPprior_diag_cov.py:153-165).
@@ -11,7 +11,7 @@ Differences from the reference, by design:
   latent dim), pads the flattened results to ``max_T**2`` and re-slices them
   per item.  Here the whole bank is one batched XLA op over ``[B, Z, T, T]``
   built from broadcast outer time differences — static shapes, no ragged
-  slicing, MXU/VPU friendly.
+  slicing.
 * Irregular (per-sequence) time grids are handled with a boolean mask instead
   of ragged unrolling: masked rows/columns of the gram are replaced by the
   identity, which leaves the Cholesky well-posed and makes masked timesteps

@@ -1,4 +1,4 @@
-"""The GP-VAE model zoo as one configurable flax module.
+"""The GP-VAE model zoo as one configurable plain-JAX model.
 
 The reference implements its seven model variants as whole-file copies
 (SURVEY.md §2.2); here one ``GPVAE`` module covers the full capability
@@ -23,7 +23,7 @@ separate fixed-time and dynamic-time codepaths collapse into one.
 Deliberate deltas from the reference:
 * lengthscales are parameterized in log space (always positive; the
   reference's raw tf.Variables can wander negative);
-* all randomness flows through explicit flax RNG streams ("sample");
+* all randomness flows through an explicit ``rngs={"sample": key}``;
 * the recognition model's KL defaults to the *exact* KL of its sampling
   distribution; set ``reference_recog_kl=True`` for behavioral parity with
   the reference's mismatched standard KL (src/Models/GP_recog_VAE_prior.py:
@@ -31,10 +31,10 @@ Deliberate deltas from the reference:
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -79,31 +79,22 @@ class GPVAEConfig:
     # BASELINE config 3, T=1024); "dense" forces the dense path.  "auto"
     # resolves at the first non-jit boundary (train.fit /
     # fit_data_parallel / the CLI call models.resolve_structured_prior
-    # with the first batch's times).  The measured winner has flipped
-    # twice on v5e as the dense path improved: the FFT-GS application made
-    # toeplitz the T=1024 winner under the round-3-interim ruler (8.59 vs
-    # 11.82 ms), then the round-3c parts-flow factorization made dense
-    # faster again (prior-KL 2.86 vs 3.41 ms; full training 192 vs 134
-    # steps/s at T=1024 B=8) — the sequential Durbin scan is now the
-    # structured path's floor.  "auto" therefore resolves to DENSE
-    # everywhere; "toeplitz" remains the explicit O(T^2)-memory/work
-    # option (BASELINE.md round 3c).  Under jit the grid cannot be
-    # validated, hence the host-side resolution step.
+    # with the first batch's times).  "auto" resolves to DENSE everywhere:
+    # the sequential Durbin scan is the structured path's floor, and the
+    # crossover against the dense factorization has not been measured on
+    # the GPU; "toeplitz" remains the explicit O(T^2)-memory/work option.
+    # Under jit the grid cannot be validated, hence the host-side
+    # resolution step.
     structured_prior: str = "auto"
     # sparse inducing-point (FITC) prior for long sequences (sparse.py)
     num_inducing: int = 64
     inducing_time_range: tuple[float, float] | None = None
-    # covariance factorization implementation, threaded to gp.chol_gram_bank
-    # as data (bench.py's xla-baseline path uses this; no module patching):
-    # "auto" | "fused" | "xla"
-    cov_impl: str = "auto"
     # matmul precision of the DENSE encoder/decoder: "highest" (default —
-    # the TPU bf16-pass default was measured to dominate the shipped
-    # config's fp64-parity deviation, 2.6e-4 vs the 1e-4 north star, and
-    # these matmuls are ~15x32 so HIGHEST costs nil; BASELINE.md audit) or
-    # "default" (backend default passes).  Conv nets always use the
-    # backend default — their FLOPs are real and bf16 passes are the right
-    # trade there.
+    # a reduced-precision f32 dot, TF32 on the GPU, would dominate the
+    # shipped config's deviation from the fp64 reference math against the
+    # 1e-4 north star, and these matmuls are ~15x32 so HIGHEST costs
+    # nothing) or "default" (the backend default).  Conv nets always use
+    # the backend default — their FLOPs are real.
     dense_precision: str = "highest"
 
     def __post_init__(self):
@@ -134,8 +125,6 @@ class GPVAEConfig:
             raise ValueError(
                 "structured_prior must be auto, dense, or toeplitz"
             )
-        if self.cov_impl not in ("auto", "fused", "xla"):
-            raise ValueError("cov_impl must be auto, fused, or xla")
         if self.dense_precision not in ("highest", "default"):
             raise ValueError("dense_precision must be highest or default")
         if self.structured_prior == "toeplitz" and not self.shared_time_grid:
@@ -213,14 +202,12 @@ def resolve_structured_prior(
 
     Host-side (non-jit) companion to :func:`check_structured_grid`:
     explicit settings are validated and returned unchanged; ``auto``
-    becomes ``'dense'`` — since the round-3c parts-flow factorization the
-    dense prior path is the measured winner at every benchmarked size
-    (T=1024: prior-KL 2.86 vs 3.41 ms, training 192 vs 134 steps/s on
-    v5e; the structured path's sequential Durbin scan is its floor —
-    see GPVAEConfig.structured_prior).  Explicit ``'toeplitz'`` keeps the
-    O(T^2) structured option.  Train.fit / fit_data_parallel call this
-    with the first batch; library users composing their own loops should
-    too (under jit a wrong structured prior is silent).
+    becomes ``'dense'`` (the structured path's sequential Durbin scan is
+    its floor — see GPVAEConfig.structured_prior).  Explicit
+    ``'toeplitz'`` keeps the O(T^2) structured option.  Train.fit /
+    fit_data_parallel call this with the first batch; library users
+    composing their own loops should too (under jit a wrong structured
+    prior is silent).
     """
     if config.structured_prior != "auto":
         check_structured_grid(config, times, mask)
@@ -248,52 +235,113 @@ jax.tree_util.register_dataclass(
 )
 
 
-class GPVAE(nn.Module):
-    """Configurable GP-VAE; see module docstring for the capability matrix."""
-    config: GPVAEConfig
+class GPVAE:
+    """Configurable GP-VAE; see module docstring for the capability matrix.
 
-    def setup(self):
+    A linen-shaped interface over plain JAX: ``init(rngs, x, times, mask)``
+    returns ``{"params": tree}`` and ``apply({"params": p}, *args,
+    method=..., rngs={"sample": key})`` runs ``__call__`` (or the named
+    method, or an unbound ``GPVAE.<method>``) on a copy bound to ``p``.
+    The params tree holds ``encoder_net``, ``decoder_net`` and, when
+    learnable, ``posterior_log_ls`` / ``prior_log_ls``.
+    """
+
+    def __init__(self, config: GPVAEConfig):
+        self.config = config
+        self._params: dict | None = None
+        self._rng: jax.Array | None = None
+
+    @property
+    def encoder_net(self):
         c = self.config
-        dense_prec = (
-            jax.lax.Precision.HIGHEST if c.dense_precision == "highest"
-            else None
-        )
         if c.encoder == "dense":
-            self.encoder_net = nets.DenseEncoder(
+            return nets.DenseEncoder(
                 c.latent_dim, with_log_var=c.needs_log_var,
-                precision=dense_prec,
+                precision=self._dense_precision,
             )
-        else:
-            self.encoder_net = nets.ConvEncoder(
-                c.latent_dim, with_log_var=c.needs_log_var
-            )
-        if c.decoder == "dense":
-            self.decoder_net = nets.DenseDecoder(
-                c.obs_dim, precision=dense_prec
-            )
-        else:
-            self.decoder_net = nets.ConvDecoder(c.image_shape)
+        return nets.ConvEncoder(c.latent_dim, with_log_var=c.needs_log_var)
 
-        if c.posterior in ("gp", "gp_plus_diag"):
-            q_init = jnp.log(jnp.asarray(
-                c._ls_tuple(c.posterior_lengthscales), jnp.float32
-            ))
-            if c.learn_posterior_lengthscales:
-                self.posterior_log_ls = self.param(
-                    "posterior_log_ls", lambda _: q_init
-                )
-            else:
-                self.posterior_log_ls = q_init
-        if c.prior in ("gp", "sparse_gp"):
-            p_init = jnp.log(jnp.asarray(
-                c._ls_tuple(c.prior_lengthscales), jnp.float32
-            ))
-            if c.learn_prior_lengthscales:
-                self.prior_log_ls = self.param(
-                    "prior_log_ls", lambda _: p_init
-                )
-            else:
-                self.prior_log_ls = p_init
+    @property
+    def decoder_net(self):
+        c = self.config
+        if c.decoder == "dense":
+            return nets.DenseDecoder(
+                c.obs_dim, precision=self._dense_precision
+            )
+        return nets.ConvDecoder(c.image_shape)
+
+    @property
+    def _dense_precision(self):
+        if self.config.dense_precision == "highest":
+            return jax.lax.Precision.HIGHEST
+        return None
+
+    def _initial_log_ls(self, raw) -> jnp.ndarray:
+        return jnp.log(jnp.asarray(self.config._ls_tuple(raw), jnp.float32))
+
+    def init(self, rngs, x, times=None, mask=None) -> dict:
+        """Fresh parameters for inputs shaped like ``x [B, T, ...]``.
+
+        ``rngs`` is ``{"params": key, ...}`` or a bare key; only the
+        ``params`` stream is used (``times``/``mask`` are accepted for
+        call-compatibility with ``apply``)."""
+        c = self.config
+        key = rngs["params"] if isinstance(rngs, dict) else rngs
+        k_enc, k_dec = jax.random.split(key)
+        b, t = x.shape[:2]
+        params = {
+            "encoder_net": self.encoder_net.init(
+                k_enc, x.reshape((b * t,) + x.shape[2:])
+            ),
+            "decoder_net": self.decoder_net.init(
+                k_dec, jnp.zeros((1, c.latent_dim), jnp.float32)
+            ),
+        }
+        if (c.posterior in ("gp", "gp_plus_diag")
+                and c.learn_posterior_lengthscales):
+            params["posterior_log_ls"] = self._initial_log_ls(
+                c.posterior_lengthscales
+            )
+        if c.prior in ("gp", "sparse_gp") and c.learn_prior_lengthscales:
+            params["prior_log_ls"] = self._initial_log_ls(
+                c.prior_lengthscales
+            )
+        return {"params": params}
+
+    def apply(self, variables: dict, *args,
+              method: str | Callable | None = None, rngs=None, **kwargs):
+        bound = copy.copy(self)
+        bound._params = variables["params"]
+        if rngs is not None:
+            bound._rng = rngs["sample"] if isinstance(rngs, dict) else rngs
+        if method is None:
+            fn = type(self).__call__
+        elif isinstance(method, str):
+            fn = getattr(type(self), method)
+        else:
+            fn = method
+        return fn(bound, *args, **kwargs)
+
+    def make_rng(self, name: str) -> jax.Array:
+        if self._rng is None:
+            raise ValueError(
+                f"this call draws samples: pass rngs={{{name!r}: key}}"
+            )
+        return self._rng
+
+    @property
+    def posterior_log_ls(self) -> jnp.ndarray:
+        c = self.config
+        if c.learn_posterior_lengthscales:
+            return self._params["posterior_log_ls"]
+        return self._initial_log_ls(c.posterior_lengthscales)
+
+    @property
+    def prior_log_ls(self) -> jnp.ndarray:
+        c = self.config
+        if c.learn_prior_lengthscales:
+            return self._params["prior_log_ls"]
+        return self._initial_log_ls(c.prior_lengthscales)
 
     # -- pieces (each independently callable via .apply(method=...),
     #    the capability the reference hacks with get_tensor_by_name
@@ -303,7 +351,7 @@ class GPVAE(nn.Module):
         """[B, T, ...] -> mean [B, T, Z] (and log_var if configured)."""
         b, t = x.shape[:2]
         flat = x.reshape((b * t,) + x.shape[2:])
-        out = self.encoder_net(flat)
+        out = self.encoder_net(self._params["encoder_net"], flat)
         if self.config.needs_log_var:
             mean, log_var = out
             return (
@@ -316,7 +364,7 @@ class GPVAE(nn.Module):
         """[S, B, T, Z] (or [B, T, Z]) -> logits with matching leading dims."""
         lead = z.shape[:-1]
         flat = z.reshape((-1, z.shape[-1]))
-        logits = self.decoder_net(flat)
+        logits = self.decoder_net(self._params["decoder_net"], flat)
         return logits.reshape(lead + logits.shape[1:])
 
     def _grid(self, times, mask):
@@ -331,7 +379,6 @@ class GPVAE(nn.Module):
         return gp.chol_gram_bank(
             times, jnp.exp(self.posterior_log_ls), mask=mask,
             kernel=self.config.kernel, noise=self.config.noise,
-            impl=self.config.cov_impl,
         )
 
     def prior_chol(self, times, mask):
@@ -339,7 +386,6 @@ class GPVAE(nn.Module):
         return gp.chol_gram_bank(
             times, jnp.exp(self.prior_log_ls), mask=mask,
             kernel=self.config.kernel, noise=self.config.noise,
-            impl=self.config.cov_impl,
         )
 
     def inducing_times(self):
@@ -348,11 +394,11 @@ class GPVAE(nn.Module):
         return jnp.linspace(lo, hi, c.num_inducing)
 
     def chol_banks(self, times, mask):
-        """All Cholesky factors this config needs, in ONE fused kernel call.
+        """All Cholesky factors this config needs, in ONE batched call.
 
         When both the posterior and the prior are GPs, their per-latent
-        lengthscales are stacked into a single 2Z-wide bank so the fused
-        Pallas gram+Cholesky kernel runs once per step instead of twice.
+        lengthscales are stacked into a single 2Z-wide bank so the gram
+        build and the batched Cholesky run once per step instead of twice.
         Returns ``{"l_q": ..., "l_p": ...}`` (absent keys for non-GP sides).
         """
         c = self.config
@@ -377,19 +423,18 @@ class GPVAE(nn.Module):
             ])
             l_all = gp.chol_gram_bank(
                 times, ls, mask=mask, kernel=c.kernel, noise=c.noise,
-                impl=c.cov_impl,
             )
             out["l_q"] = l_all[:, : c.latent_dim]
             out["l_p"] = l_all[:, c.latent_dim:]
         elif want_q:
             out["l_q"] = gp.chol_gram_bank(
                 times, jnp.exp(self.posterior_log_ls), mask=mask,
-                kernel=c.kernel, noise=c.noise, impl=c.cov_impl,
+                kernel=c.kernel, noise=c.noise,
             )
         elif want_p:
             out["l_p"] = gp.chol_gram_bank(
                 times, jnp.exp(self.prior_log_ls), mask=mask,
-                kernel=c.kernel, noise=c.noise, impl=c.cov_impl,
+                kernel=c.kernel, noise=c.noise,
             )
         return out
 

@@ -1,4 +1,4 @@
-"""Encoder/decoder networks (flax.linen).
+"""Encoder/decoder networks in plain JAX.
 
 Re-implementations of the reference's L4 layer:
 
@@ -10,41 +10,87 @@ Re-implementations of the reference's L4 layer:
 * optional log-variance head for diagonal/recognition posteriors —
   src/Models/VAE_GPprior_diag_cov.py:54-62.
 
+Each net is a frozen description with ``init(key, x) -> params`` and
+``__call__(params, x)``.  Params are nested dicts laid out as linen
+modules name them (``Dense_i``/``Conv_i``/``ConvTranspose_i`` numbered in
+call order, plus the named heads, each holding ``kernel``/``bias``), so
+checkpoints and the fp64 oracle (utils/reference_math.py) read them by
+name.  Convolutions are SAME-padded with HWIO kernels.
+
 Design deltas from the reference (deliberate):
 * decoders return *logits*, not clamped sigmoid probabilities — the Bernoulli
   NLL is computed with the numerically stable log-sigmoid form instead of the
   reference's ``log(p + 1e-10)`` clamp (GP_VAE_syn_data.py:334-341);
-* convolutions are XLA-native ``lax.conv_general_dilated`` via flax — already
-  MXU-optimal on TPU (SURVEY.md §2.3), no custom kernel warranted;
-* the DENSE nets pin ``precision=HIGHEST`` by default: on TPU the default
-  f32 matmul runs bf16 passes, which was measured to dominate the shipped
-  config's deviation from the fp64 reference math (max loss rel 2.6e-4 vs
-  the 1e-4 north star; forcing HIGHEST recovers 1.1e-5 — BASELINE.md fp64
-  trajectory audit).  These matmuls are ~15x32 — the cost is nil.  The conv
-  nets keep the default (bf16-pass) precision; flip with
-  ``GPVAEConfig(dense_precision="default")``.
+* precision policy: the DENSE nets pin ``precision=HIGHEST`` by default.
+  An f32 dot without a precision argument may run in TF32 on the GPU
+  (about three decimal digits), which would dominate the shipped config's
+  deviation from the fp64 reference math (1e-4 north star).  These matmuls
+  are ~15x32, so HIGHEST costs nothing.  The conv nets keep the backend
+  default (TF32 on the GPU): their FLOPs are real.  Flip the dense nets
+  with ``GPVAEConfig(dense_precision="default")``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+from jax import lax
 
-_HI = jax.lax.Precision.HIGHEST
+_HI = lax.Precision.HIGHEST
 
 # Reference initializers (src/Models/syndata/GP_VAE_syn_data.py:9-13)
-_W_INIT = nn.initializers.truncated_normal(stddev=0.1)
-_B_INIT = nn.initializers.constant(0.1)
+_W_INIT = jax.nn.initializers.truncated_normal(stddev=0.1)
+_BIAS = 0.1
 
 # Reference conv channel schedule (src/Models/Full_GP_VAE_dynamic_time.py:27-58)
 CONV_FEATURES = (16, 32, 64, 128, 256, 512)
 # Reference dense hidden schedule (src/Models/syndata/GP_VAE_syn_data.py:15-39)
 DENSE_HIDDEN = (32, 32, 16, 8)
 
+_CONV_DIMS = ("NHWC", "HWIO", "NHWC")
 
-class DenseEncoder(nn.Module):
+
+def _layer(key, kernel_shape) -> dict:
+    return {
+        "kernel": _W_INIT(key, kernel_shape, jnp.float32),
+        "bias": jnp.full(kernel_shape[-1:], _BIAS, jnp.float32),
+    }
+
+
+def _dense(p, x, precision=None):
+    return jnp.dot(x, p["kernel"], precision=precision) + p["bias"]
+
+
+def _promote(x, kernel):
+    # lax convolutions take one dtype (jnp.dot promotes on its own)
+    dtype = jnp.result_type(x, kernel)
+    return x.astype(dtype), kernel.astype(dtype)
+
+
+def _conv(p, x):
+    x, k = _promote(x, p["kernel"])
+    return lax.conv_general_dilated(
+        x, k, (2, 2), "SAME", dimension_numbers=_CONV_DIMS,
+    ) + p["bias"]
+
+
+def _conv_transpose(p, x, stride):
+    x, k = _promote(x, p["kernel"])
+    return lax.conv_transpose(
+        x, k, (stride, stride), "SAME", dimension_numbers=_CONV_DIMS,
+    ) + p["bias"]
+
+
+def _init_layers(key, shapes: dict) -> dict:
+    keys = jax.random.split(key, len(shapes))
+    return {name: _layer(k, shape)
+            for k, (name, shape) in zip(keys, shapes.items())}
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseEncoder:
     """15 -> 32 -> 32 -> 16 -> 8 -> Z ReLU MLP with linear mean head
     (and optional log-variance head)."""
     latent_dim: int
@@ -52,48 +98,48 @@ class DenseEncoder(nn.Module):
     with_log_var: bool = False
     precision: Any = _HI
 
-    @nn.compact
-    def __call__(self, x):
+    def init(self, key, x) -> dict:
+        dims = (x.shape[-1],) + tuple(self.hidden)
+        shapes = {f"Dense_{i}": (dims[i], dims[i + 1])
+                  for i in range(len(self.hidden))}
+        shapes["mean_head"] = (dims[-1], self.latent_dim)
+        if self.with_log_var:
+            shapes["log_var_head"] = (dims[-1], self.latent_dim)
+        return _init_layers(key, shapes)
+
+    def __call__(self, params, x):
         h = x
-        for width in self.hidden:
-            h = nn.relu(
-                nn.Dense(width, kernel_init=_W_INIT, bias_init=_B_INIT,
-                         precision=self.precision)(h)
-            )
-        mean = nn.Dense(
-            self.latent_dim, kernel_init=_W_INIT, bias_init=_B_INIT,
-            precision=self.precision, name="mean_head",
-        )(h)
+        for i in range(len(self.hidden)):
+            h = jax.nn.relu(_dense(params[f"Dense_{i}"], h, self.precision))
+        mean = _dense(params["mean_head"], h, self.precision)
         if not self.with_log_var:
             return mean
-        log_var = nn.Dense(
-            self.latent_dim, kernel_init=_W_INIT, bias_init=_B_INIT,
-            precision=self.precision, name="log_var_head",
-        )(h)
-        return mean, log_var
+        return mean, _dense(params["log_var_head"], h, self.precision)
 
 
-class DenseDecoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DenseDecoder:
     """Z -> 8 -> 16 -> 32 -> 32 -> obs_dim, returning Bernoulli logits."""
     obs_dim: int
     hidden: Sequence[int] = tuple(reversed(DENSE_HIDDEN))
     precision: Any = _HI
 
-    @nn.compact
-    def __call__(self, z):
+    def init(self, key, z) -> dict:
+        dims = (z.shape[-1],) + tuple(self.hidden)
+        shapes = {f"Dense_{i}": (dims[i], dims[i + 1])
+                  for i in range(len(self.hidden))}
+        shapes["logits_head"] = (dims[-1], self.obs_dim)
+        return _init_layers(key, shapes)
+
+    def __call__(self, params, z):
         h = z
-        for width in self.hidden:
-            h = nn.relu(
-                nn.Dense(width, kernel_init=_W_INIT, bias_init=_B_INIT,
-                         precision=self.precision)(h)
-            )
-        return nn.Dense(
-            self.obs_dim, kernel_init=_W_INIT, bias_init=_B_INIT,
-            precision=self.precision, name="logits_head",
-        )(h)
+        for i in range(len(self.hidden)):
+            h = jax.nn.relu(_dense(params[f"Dense_{i}"], h, self.precision))
+        return _dense(params["logits_head"], h, self.precision)
 
 
-class ConvEncoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ConvEncoder:
     """64x64x1 -> six stride-2 3x3 convs (16..512) -> flatten -> Z.
 
     Input: ``[N, H, W, C]`` frames (callers flatten [B, T] into N)."""
@@ -101,31 +147,31 @@ class ConvEncoder(nn.Module):
     features: Sequence[int] = CONV_FEATURES
     with_log_var: bool = False
 
-    @nn.compact
-    def __call__(self, x):
+    def init(self, key, x) -> dict:
+        _, h, w, c = x.shape
+        shapes = {}
+        for i, feat in enumerate(self.features):
+            shapes[f"Conv_{i}"] = (3, 3, c, feat)
+            # SAME padding at stride 2: ceil(size / 2)
+            h, w, c = -(-h // 2), -(-w // 2), feat
+        shapes["mean_head"] = (h * w * c, self.latent_dim)
+        if self.with_log_var:
+            shapes["log_var_head"] = (h * w * c, self.latent_dim)
+        return _init_layers(key, shapes)
+
+    def __call__(self, params, x):
         h = x
-        for feat in self.features:
-            h = nn.relu(
-                nn.Conv(
-                    feat, kernel_size=(3, 3), strides=(2, 2), padding="SAME",
-                    kernel_init=_W_INIT, bias_init=_B_INIT,
-                )(h)
-            )
+        for i in range(len(self.features)):
+            h = jax.nn.relu(_conv(params[f"Conv_{i}"], h))
         h = h.reshape((h.shape[0], -1))
-        mean = nn.Dense(
-            self.latent_dim, kernel_init=_W_INIT, bias_init=_B_INIT,
-            name="mean_head",
-        )(h)
+        mean = _dense(params["mean_head"], h)
         if not self.with_log_var:
             return mean
-        log_var = nn.Dense(
-            self.latent_dim, kernel_init=_W_INIT, bias_init=_B_INIT,
-            name="log_var_head",
-        )(h)
-        return mean, log_var
+        return mean, _dense(params["log_var_head"], h)
 
 
-class ConvDecoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ConvDecoder:
     """Z -> dense -> h0 x h0 seed -> stride-2 transposed convs -> H x W
     logits (reference src/Models/Full_GP_VAE_dynamic_time.py:262-292).
 
@@ -136,38 +182,38 @@ class ConvDecoder(nn.Module):
     image_shape: tuple[int, int, int] = (64, 64, 1)
     features: Sequence[int] = tuple(reversed(CONV_FEATURES))
 
-    @nn.compact
-    def __call__(self, z):
-        h_dim = self.image_shape[0]
+    def _plan(self):
+        """(seed, seed dense width, transposed-conv widths, head stride)."""
+        n = len(self.features)
         # number of stride-2 doublings: 2-adic valuation, capped at the
         # reference's six layers; seed spatial size is what remains
         k = 0
-        seed = h_dim
-        while seed % 2 == 0 and k < len(self.features):
+        seed = self.image_shape[0]
+        while seed % 2 == 0 and k < n:
             seed //= 2
             k += 1
-        feats = self.features[len(self.features) - k:] or (self.features[-1],)
-        h = nn.relu(
-            nn.Dense(
-                seed * seed * self.features[len(self.features) - k - 1]
-                if k < len(self.features)
-                else self.features[0],
-                kernel_init=_W_INIT, bias_init=_B_INIT,
-            )(z)
-        )
-        c0 = h.shape[-1] // (seed * seed)
-        h = h.reshape((h.shape[0], seed, seed, c0))
-        for feat in feats[1:] if k == len(self.features) else feats:
-            h = nn.relu(
-                nn.ConvTranspose(
-                    feat, kernel_size=(3, 3), strides=(2, 2), padding="SAME",
-                    kernel_init=_W_INIT, bias_init=_B_INIT,
-                )(h)
+        feats = tuple(self.features[n - k:]) or (self.features[-1],)
+        if k == n:
+            # the 1x1 seed holds features[0]; the head makes the last doubling
+            return seed, self.features[0], feats[1:], 2
+        return seed, seed * seed * self.features[n - k - 1], feats, 1
+
+    def init(self, key, z) -> dict:
+        seed, width, feats, _ = self._plan()
+        shapes = {"Dense_0": (z.shape[-1], width)}
+        c = width // (seed * seed)
+        for i, feat in enumerate(feats):
+            shapes[f"ConvTranspose_{i}"] = (3, 3, c, feat)
+            c = feat
+        shapes["logits_head"] = (3, 3, c, self.image_shape[-1])
+        return _init_layers(key, shapes)
+
+    def __call__(self, params, z):
+        seed, width, feats, head_stride = self._plan()
+        h = jax.nn.relu(_dense(params["Dense_0"], z))
+        h = h.reshape((h.shape[0], seed, seed, width // (seed * seed)))
+        for i in range(len(feats)):
+            h = jax.nn.relu(
+                _conv_transpose(params[f"ConvTranspose_{i}"], h, 2)
             )
-        h = nn.ConvTranspose(
-            self.image_shape[-1], kernel_size=(3, 3),
-            strides=(2, 2) if k == len(self.features) else (1, 1),
-            padding="SAME", kernel_init=_W_INIT, bias_init=_B_INIT,
-            name="logits_head",
-        )(h)
-        return h  # [N, H, W, C] logits
+        return _conv_transpose(params["logits_head"], h, head_stride)

@@ -1,45 +1,22 @@
-"""TPU-native linear-algebra ops for the GP covariance subsystem.
+"""Linear-algebra ops for the GP covariance subsystem.
 
 This package re-owns the native ops the reference delegates to TF 1.x's
 bundled C++/Eigen kernels (SURVEY.md §2.3):
 
-* ``tf.cholesky``            -> :func:`cholesky` (lane-batched Pallas kernel /
-                                blocked MXU path / XLA fallback)
+* ``tf.cholesky``            -> :func:`cholesky` (``jnp.linalg.cholesky``
+                                with an analytic custom VJP)
 * ``tf.linalg.logdet``       -> :func:`logdet_from_chol` (from the Cholesky
                                 diagonal; no determinant is ever formed)
 * ``tf.matrix_inverse``      -> eliminated; :func:`solve_triangular` (trsm)
 * ``tf.matrix_determinant``  -> same logdet-via-Cholesky path
-* ``L @ eps`` sampling matmul-> fused on-MXU in gp.py
+* ``L @ eps`` sampling matmul-> one batched einsum in gp.py
 """
-from gpvae_tpu.ops import dispatch
-from gpvae_tpu.ops.chol import (
-    cholesky,
-    cholesky_blocked,
-    cholesky_blocked_fused,
-    cholesky_blocked_left,
-    cholesky_xla,
-)
-from gpvae_tpu.ops.pallas_tri import tri_inv, tri_inv_blocked
-from gpvae_tpu.ops.pallas_chol import (
-    chol_small_batched,
-    gram_chol_fused,
-    LANE_BATCH_MAX_T,
-)
+from gpvae_tpu.ops.chol import cholesky
 from gpvae_tpu.ops.trsm import solve_triangular
 from gpvae_tpu.ops.logdet import logdet_from_chol, chol_logdet, slogdet_psd
 
 __all__ = [
-    "dispatch",
     "cholesky",
-    "cholesky_blocked",
-    "cholesky_blocked_fused",
-    "cholesky_blocked_left",
-    "cholesky_xla",
-    "tri_inv",
-    "tri_inv_blocked",
-    "chol_small_batched",
-    "gram_chol_fused",
-    "LANE_BATCH_MAX_T",
     "solve_triangular",
     "logdet_from_chol",
     "chol_logdet",

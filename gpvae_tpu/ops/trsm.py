@@ -10,31 +10,12 @@ KL/posterior quantity is rewritten in solve form:
 * ``mu^T K_p^{-1} mu  = ||L_p^{-1} mu||^2``
 * posterior conditioning uses ``L^{-1} K_*`` and ``L^{-1} z``.
 
-Two execution paths:
-
-* **TPU, lower triangles up to 2048**: XLA's sequential-substitution trsm
-  dominates the KL forward AND backward (each ~half of it), so solves
-  dispatch to the triangular inverse (lane-batched Pallas kernel for side
-  <= 64, MXU block recursion above — pallas_tri.tri_inv) followed by one
-  MXU matmul — ``op(A)^{-1}`` is formed once (O(nb^3) vectorized) and
-  applied as a matmul.  Differentiable through the inverse's analytic VJP.
-  The triangles here are jittered gram factors (cond(L) = sqrt(cond(K)),
-  bounded by the noise floor), so the explicit-inverse route costs ~1 ulp
-  amplification, verified against fp64 oracles.
-* **everywhere else**: XLA's batched ``triangular_solve``.
+XLA lowers ``triangular_solve`` to the batched cuBLAS ``trsm`` on the GPU.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-from gpvae_tpu.ops import dispatch, pallas_tri
-
-_HI = jax.lax.Precision.HIGHEST
-
-# above this, the [.., T, T] inverse's memory/extra-flops outgrow the win
-# over the sequential substitution (and conditioning caution grows with T)
-INV_ROUTE_MAX_T = 2048
 
 
 def solve_triangular(
@@ -44,33 +25,11 @@ def solve_triangular(
     left_side: bool = True,
     lower: bool = True,
     transpose_a: bool = False,
-    via_inverse: bool | None = None,
 ) -> jnp.ndarray:
     """Solve ``op(A) X = B`` (left) or ``X op(A) = B`` (right), A triangular.
 
     Batched over leading dims.  ``op(A) = A^T`` if ``transpose_a``.
-    ``via_inverse`` forces/disables the inverse-matmul fast path (default:
-    auto — TPU, lower-triangular, side <= 64).
     """
-    nb = a.shape[-1]
-    if via_inverse is None:
-        via_inverse = (
-            dispatch.on_tpu()
-            and lower
-            and nb <= INV_ROUTE_MAX_T
-        )
-    if via_inverse and lower and nb <= INV_ROUTE_MAX_T:
-        inv = pallas_tri.tri_inv(a)
-        op = jnp.swapaxes(inv, -1, -2) if transpose_a else inv
-        if left_side:
-            return jnp.einsum(
-                "...ij,...jk->...ik", op, b,
-                preferred_element_type=jnp.float32, precision=_HI,
-            )
-        return jnp.einsum(
-            "...ij,...jk->...ik", b, op,
-            preferred_element_type=jnp.float32, precision=_HI,
-        )
     return jax.lax.linalg.triangular_solve(
         a,
         b,

@@ -1,17 +1,19 @@
 """Data-parallel training over a device mesh.
 
 The reference is strictly single-process/single-device (SURVEY.md §2.4: no
-tf.device, no distribution strategy, no NCCL/MPI anywhere).  The TPU-native
-scaling story (BASELINE.json config 5: 4096 series x T=1024 on a v5p mesh):
+tf.device, no distribution strategy, no NCCL/MPI anywhere).  The scaling
+story (BASELINE.json config 5: 4096 series x T=1024 over the cards of one
+host):
 
-* one ``Mesh`` with a ``data`` axis over all chips;
+* one ``Mesh`` with a ``data`` axis over all devices (the cards of a host
+  are joined all to all, so a 1-D mesh needs no topology);
 * the batch (and with it the ``[B*Z]`` batch-of-matrices axis of the
   covariance subsystem — every gram/Cholesky/solve shards for free with B)
   sharded over ``data`` via ``NamedSharding``;
 * parameters/optimizer state replicated;
-* gradient combination compiles to one ``psum`` over ICI — XLA inserts the
-  collective from the sharding annotations; there is no hand-written
-  communication.
+* gradient combination compiles to one all-reduce (NCCL on the GPU) —
+  XLA inserts the collective from the sharding annotations; there is no
+  hand-written communication.
 
 TP/PP are deliberately absent: the largest dense layer in the model family
 is 512x100 (SURVEY.md §2.4), far below the threshold where sharded matmuls
@@ -27,7 +29,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from gpvae_tpu import elbo as elbo_lib
 from gpvae_tpu.models import GPVAE
-from gpvae_tpu.ops import dispatch
 from gpvae_tpu.train import TrainState
 
 import optax
@@ -115,21 +116,12 @@ def make_parallel_train_step(
 
     # a single sharding for the batch argument applies to every leaf, so
     # optional keys (feature_mask, the healing regime) shard for free
-    jitted = jax.jit(
+    return jax.jit(
         step_fn,
         in_shardings=(repl, data),
         out_shardings=(repl, repl),
         donate_argnums=(0,),
     )
-
-    def run(state: TrainState, batch: dict):
-        # dispatch must follow the mesh's devices, not the global default
-        # backend — tracing happens inside the first call, so the override
-        # is active exactly when the backend-sensitive ops resolve
-        with dispatch.compute_on(mesh):
-            return jitted(state, batch)
-
-    return run
 
 
 def shard_batch_stack(
@@ -167,13 +159,12 @@ def make_parallel_multi_step(
     over super-batches ``[k, B_global, ...]`` whose batch axis shards over
     the mesh (the mesh analog of ``train.make_multi_step``).
 
-    The k=1 dispatch-per-step loop pays one host->device staging + one
-    remote dispatch per optimizer step — exactly the pattern the
-    single-chip loop measured ~10x wall-clock against (train.py
-    steps_per_call).  Here the scan keeps the sharded super-batch
-    device-resident across all k steps; the per-step gradient psum over
-    ICI is unchanged.  Step-for-step identical to the k=1 path (same
-    ``train._build_step_fn`` body; tests assert parity)."""
+    The k=1 dispatch-per-step loop pays one host->device staging and one
+    dispatch per optimizer step (train.py steps_per_call).  Here the scan
+    keeps the sharded super-batch device-resident across all k steps; the
+    per-step gradient all-reduce is unchanged.  Step-for-step identical
+    to the k=1 path (same ``train._build_step_fn`` body; tests assert
+    parity)."""
     from gpvae_tpu import train as train_lib
 
     repl = NamedSharding(mesh, P())
@@ -185,18 +176,12 @@ def make_parallel_multi_step(
         last = jax.tree_util.tree_map(lambda m: m[-1], metrics)
         return state, last
 
-    jitted = jax.jit(
+    return jax.jit(
         multi_fn,
         in_shardings=(repl, data2),
         out_shardings=(repl, repl),
         donate_argnums=(0,),
     )
-
-    def run(state: TrainState, batches: dict):
-        with dispatch.compute_on(mesh):
-            return jitted(state, batches)
-
-    return run
 
 
 def fit_data_parallel(
@@ -214,13 +199,13 @@ def fit_data_parallel(
     Each batch from ``batches`` is the GLOBAL batch; its leading axis
     shards over the mesh's ``data`` axis (must divide evenly), parameters
     and optimizer state replicate, and the gradient reduction compiles to
-    one psum over the interconnect.  Like the single-chip loop, the driver
-    runs ``config.steps_per_call`` optimizer steps per dispatch — a
+    one all-reduce over the interconnect.  Like the single-chip loop, the
+    driver runs ``config.steps_per_call`` optimizer steps per dispatch — a
     ``lax.scan`` over a device-resident sharded super-batch
-    (:func:`make_parallel_multi_step`) — instead of one host staging +
-    remote dispatch per step.  Checkpointing/resume go through the same
-    orbax manager as the single-chip loop (replicated arrays are
-    host-addressable).  Returns ``(state, MetricsLog)``.
+    (:func:`make_parallel_multi_step`) — instead of one host staging and
+    dispatch per step.  Checkpointing/resume go through the same
+    ``train.CheckpointManager`` as the single-chip loop (replicated arrays
+    are host-addressable).  Returns ``(state, MetricsLog)``.
     """
     import time
 

@@ -19,7 +19,7 @@ identity and the matrix-determinant lemma through Cholesky factors of
                             W = L_A^{-1} K_mt D^{-1}
     mu^T (Q+D)^{-1} mu    = sum_i mu_i^2 / d_i - ||W mu||^2
 
-Everything is batched ``[B, Z]`` and MXU-shaped: the only big ops are
+Everything is batched ``[B, Z]``: the only big ops are
 ``[T, m]`` matmuls.  Masked timesteps get d=1, zeroed K_tm rows, and
 neutral mu/v, contributing exactly zero (same convention as gp.py).
 """

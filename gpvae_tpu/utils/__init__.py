@@ -3,7 +3,9 @@ from gpvae_tpu.utils.profiling import (
     StepTimer,
     cholesky_flops,
     device_memory_stats,
+    card_info,
 )
+from gpvae_tpu.utils.compile_cache import enable_compile_cache
 from gpvae_tpu.utils.debug import (
     assert_finite,
     check_finite,
@@ -15,7 +17,9 @@ __all__ = [
     "StepTimer",
     "cholesky_flops",
     "device_memory_stats",
+    "card_info",
     "assert_finite",
     "check_finite",
     "enable_nan_debugging",
+    "enable_compile_cache",
 ]

@@ -4,7 +4,7 @@ The reference's de-facto "sanitizer" is casting the KL chain to fp64
 (src/Models/syndata/GP_VAE_syn_data.py:218-225) after its fp32 ancestor
 underflowed determinants (src/old/VAE_learntime_GP.py:174-183, the
 ``det + 1e-15`` band-aid at src/old/GP_VAE_syn_data.py:197).  This framework
-never forms determinants, but fp32-on-TPU still deserves guards:
+never forms determinants, but fp32 on an accelerator still deserves guards:
 
 * :func:`enable_nan_debugging` — flips ``jax_debug_nans`` so the first NaN
   raises with a traceback to the producing op;

@@ -9,11 +9,14 @@ src/Models/Full_GP_VAE_dynamic_time.py:364; SURVEY.md §5 tracing).  Here:
 * :class:`StepTimer` — steps/sec + per-step wall time with device sync;
 * :func:`cholesky_flops` — the TFLOP accounting used by bench.py
   (N * T^3 / 3 useful FLOPs per batched factorization);
-* :func:`device_memory_stats` — live/peak HBM from the device API.
+* :func:`device_memory_stats` — live/peak HBM from the device API;
+* :func:`card_info` — the GPU's name and power limit, to print beside
+  every device number.
 """
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 
 import jax
@@ -81,3 +84,14 @@ def device_memory_stats(device=None) -> dict:
         for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")
         if k in stats
     }
+
+
+def card_info() -> str:
+    """``name, power.limit`` of each GPU, as ``nvidia-smi`` reports them
+    (one line per card).  A card below its maximum power limit runs
+    slower under load, so the limit belongs beside every time."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()

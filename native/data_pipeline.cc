@@ -4,7 +4,7 @@
 // reshuffle (src/Models/DataHandler.py:22-51), /255 normalize + 0.498
 // binarize (:68-78), and the ragged sentinel(-1) -> per-sequence slicing
 // pipeline (:129-156).  At production batch sizes the host side must keep a
-// TPU fed; this library implements those transforms as a multithreaded C++
+// device fed; this library implements those transforms as a multithreaded C++
 // runtime with a C ABI (consumed from Python via ctypes — no pybind11
 // dependency), plus a prefetching batch assembler that overlaps host-side
 // gather/shuffle with device compute.

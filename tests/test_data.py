@@ -28,7 +28,7 @@ def test_generate_toy_data_contract():
 
 
 def test_generate_toy_data_fp32_not_degenerate():
-    """The generator is pinned to fp32 (the TPU regime); its grams (rank-2
+    """The generator is pinned to fp32 (the accelerator regime); its grams (rank-2
     cosine, near-singular RBF) must stay factorizable there — an x64
     fallback would hide a NaN->all-zeros regression."""
     data = generate_toy_data(jax.random.key(3), 32)

@@ -38,6 +38,44 @@ def test_gp_kl_vs_oracle():
             assert abs(float(got[i, j]) - want) < 1e-8 * max(1, abs(want))
 
 
+@pytest.mark.parametrize("case", ["per_seq", "per_seq_masked", "shared"])
+def test_gp_kl_fp32_vs_fp64_oracle(case):
+    """The fp32 production KL (gram bank -> Cholesky -> solves) against the
+    fp64 explicit-inverse oracle, with per-sequence factors (ragged mask or
+    none) or factors shared across the batch (leading dim 1)."""
+    rng = np.random.default_rng(11)
+    b, z, t = 4, 2, 20
+    times = np.sort(rng.uniform(0, 45, (b, t)), -1)
+    mask = np.ones((b, t), bool)
+    if case == "per_seq_masked":
+        mask[1, 13:] = False
+        mask[3, 7:] = False
+    mu = rng.standard_normal((b, t, z)) * mask[..., None]
+    ls_q, ls_p = np.array([4.0, 2.0]), np.array([9.0, 3.0])
+    shared_q = shared_p = case == "shared"
+    tq = times[:1] if shared_q else times
+    tp = times[:1] if shared_p else times
+    mk = jnp.asarray(mask) if case == "per_seq_masked" else None
+    l_q = gp.chol_gram_bank(jnp.asarray(tq, jnp.float32),
+                            jnp.asarray(ls_q, jnp.float32), mask=mk)
+    l_p = gp.chol_gram_bank(jnp.asarray(tp, jnp.float32),
+                            jnp.asarray(ls_p, jnp.float32), mask=mk)
+    got = np.asarray(gp.gp_kl(jnp.asarray(mu, jnp.float32), l_q, l_p, mk))
+    assert got.shape == (b, z)
+    for i in range(b):
+        keep = mask[i]
+        for j in range(z):
+            ti_q = (tq[0] if shared_q else tq[i])[keep]
+            ti_p = (tp[0] if shared_p else tp[i])[keep]
+            kq = np.asarray(kernels.gram_bank(
+                jnp.asarray(ti_q[None]), jnp.asarray(ls_q[j:j + 1])))[0, 0]
+            kp = np.asarray(kernels.gram_bank(
+                jnp.asarray(ti_p[None]), jnp.asarray(ls_p[j:j + 1])))[0, 0]
+            want = kl_oracle_full(mu[i, keep, j], kq, kp)
+            assert abs(got[i, j] - want) <= 1e-4 * max(1.0, abs(want)), (
+                case, i, j, got[i, j], want)
+
+
 def test_gp_kl_properties():
     rng = np.random.default_rng(1)
     l, k = rand_chol(rng, (2, 3, 10, 10))

@@ -1,19 +1,20 @@
-"""Linalg ops (Cholesky / trsm / logdet) vs fp64 oracles, incl. gradients."""
+"""Linalg ops (Cholesky / trsm / logdet) and the gram-bank factorization
+vs fp64 oracles, incl. the custom VJPs."""
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpvae_tpu import kernels
+from gpvae_tpu import gp, kernels
 from gpvae_tpu.ops import (
     cholesky,
-    cholesky_blocked,
-    chol_small_batched,
-    gram_chol_fused,
     logdet_from_chol,
     slogdet_psd,
     solve_triangular,
 )
+from gpvae_tpu.ops.chol import cholesky_bwd_from_l
 
 
 def random_psd(rng, n, t, cond_scale=1.0):
@@ -22,24 +23,175 @@ def random_psd(rng, n, t, cond_scale=1.0):
     return k.astype(np.float64)
 
 
-@pytest.mark.parametrize("t", [4, 20, 45, 64])
-def test_chol_small_batched_vs_oracle(t):
-    rng = np.random.default_rng(0)
-    k = random_psd(rng, 7, t)
-    got = chol_small_batched(jnp.asarray(k, jnp.float32))
-    want = np.linalg.cholesky(k)
-    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4, atol=2e-4)
+# the shapes the covariance path runs at: the toy/MNIST regime (T <= 64)
+# through the long-sequence presets
+CHOL_T = [4, 20, 45, 64, 96, 128, 200, 256, 384, 520]
 
 
-@pytest.mark.parametrize("t", [96, 128, 200, 256])
-def test_cholesky_blocked_vs_oracle(t):
-    rng = np.random.default_rng(1)
+@pytest.mark.parametrize("t", CHOL_T)
+def test_cholesky_vs_oracle(t):
+    rng = np.random.default_rng(t)
     k = random_psd(rng, 3, t)
-    got = cholesky_blocked(jnp.asarray(k, jnp.float32))
+    got = np.asarray(cholesky(jnp.asarray(k, jnp.float32)))
     want = np.linalg.cholesky(k)
-    err = np.abs(np.asarray(got) - want)
-    scale = np.abs(want).max()
-    assert err.max() / scale < 5e-4
+    assert got.dtype == np.float32
+    # fp32 factor of a well-conditioned K: relative to the factor's scale
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < 5e-6 * max(1.0, t / 64), err
+    np.testing.assert_array_equal(got, np.tril(got))
+
+
+@pytest.mark.parametrize("t", CHOL_T)
+def test_cholesky_vjp_fp32_vs_fp64_grad(t):
+    """The fp32 custom VJP against fp64 ``jax.grad`` through JAX's own
+    Cholesky rule, for a cotangent on every lower entry."""
+    rng = np.random.default_rng(100 + t)
+    k = random_psd(rng, 2, t)
+    w = np.tril(rng.standard_normal((t, t)))
+
+    def loss(chol, kk):
+        return jnp.sum(chol(kk) * jnp.asarray(w, kk.dtype))
+
+    got = np.asarray(jax.grad(lambda kk: loss(cholesky, kk))(
+        jnp.asarray(k, jnp.float32)))
+    want = np.asarray(jax.grad(lambda kk: loss(jnp.linalg.cholesky, kk))(
+        jnp.asarray(k, jnp.float64)))
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < 1e-4, err
+
+
+@pytest.mark.parametrize("t", [3, 12, 45, 130])
+def test_cholesky_vjp_rule_exact_in_fp64(t):
+    """In fp64 the analytic rule must reproduce JAX's differentiated
+    Cholesky to rounding: K_bar symmetric, equal to grad after
+    symmetrization."""
+    rng = np.random.default_rng(200 + t)
+    k = jnp.asarray(random_psd(rng, 2, t))
+    l = jnp.linalg.cholesky(k)
+    l_bar = jnp.asarray(np.tril(rng.standard_normal((2, t, t))))
+    got = np.asarray(cholesky_bwd_from_l(l, l_bar))
+    _, vjp = jax.vjp(jnp.linalg.cholesky, k)
+    want = np.asarray(vjp(l_bar)[0])
+    want = 0.5 * (want + np.swapaxes(want, -1, -2))
+    np.testing.assert_allclose(got, np.swapaxes(got, -1, -2), rtol=0,
+                               atol=1e-12 * np.abs(got).max())
+    np.testing.assert_allclose(got, want, rtol=1e-9,
+                               atol=1e-9 * np.abs(want).max())
+
+
+def _gram_bank_inputs(masked, b=3, t=16, z=2):
+    rng = np.random.default_rng(7)
+    times = np.sort(rng.uniform(0, 30, (b, t)), -1)
+    mask = None
+    if masked:
+        mask = np.arange(t)[None, :] < np.array([[t], [11], [6]])
+    return times, mask
+
+
+# noise 1e-2 keeps every kernel (the rank-2 cosine one included) well
+# enough conditioned for an fp32-vs-fp64 comparison
+_GB_NOISE = 1e-2
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kernel", sorted(kernels.KERNELS))
+def test_chol_gram_bank_forward_vs_fp64(kernel, masked):
+    times, mask = _gram_bank_inputs(masked)
+    ls = np.array([2.5, 6.0])
+    got = np.asarray(gp.chol_gram_bank(
+        jnp.asarray(times, jnp.float32), jnp.asarray(ls, jnp.float32),
+        mask=None if mask is None else jnp.asarray(mask), kernel=kernel,
+        noise=_GB_NOISE, variance=1.3,
+    ))
+    k64 = np.asarray(kernels.gram_bank(
+        jnp.asarray(times), jnp.asarray(ls),
+        mask=None if mask is None else jnp.asarray(mask), kernel=kernel,
+        noise=_GB_NOISE, variance=1.3,
+    ))
+    want = np.linalg.cholesky(k64)
+    assert np.abs(got - want).max() < 5e-5 * np.abs(want).max()
+    if mask is not None:
+        # masked rows/cols are identity-padded
+        dead = ~mask
+        for i in range(mask.shape[0]):
+            d = np.flatnonzero(dead[i])
+            np.testing.assert_array_equal(
+                got[i][:, d, d], np.ones((got.shape[1], d.size), np.float32)
+            )
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kernel", sorted(kernels.KERNELS))
+def test_chol_gram_bank_grads_vs_fp64(kernel, masked):
+    """Lengthscale and per-latent variance gradients through the custom
+    VJP (fp32) against fp64 ``jax.grad`` of the composed gram+Cholesky."""
+    times, mask = _gram_bank_inputs(masked)
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((3, 2, 16, 16))
+    mk = None if mask is None else jnp.asarray(mask)
+
+    def loss(ls, var, dtype, fn):
+        l = fn(jnp.asarray(times, dtype), ls, var)
+        return (jnp.sum(l * jnp.asarray(w, dtype))
+                + jnp.sum(jnp.log(jnp.diagonal(l, axis1=-2, axis2=-1))))
+
+    def ours(tt, ls, var):
+        return gp.chol_gram_bank(tt, ls, mask=mk, kernel=kernel,
+                                 noise=_GB_NOISE, variance=var)
+
+    def composed(tt, ls, var):
+        return jnp.linalg.cholesky(kernels.gram_bank(
+            tt, ls, mask=mk, kernel=kernel, noise=_GB_NOISE, variance=var))
+
+    ls0, var0 = np.array([2.5, 6.0]), np.array([1.3, 0.7])
+    got = jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(ls0, jnp.float32), jnp.asarray(var0, jnp.float32),
+        jnp.float32, ours)
+    want = jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(ls0), jnp.asarray(var0), jnp.float64, composed)
+    for g, wnt in zip(got, want):
+        g, wnt = np.asarray(g), np.asarray(wnt)
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, wnt, rtol=2e-3,
+                                   atol=2e-4 * np.abs(wnt).max())
+
+
+@pytest.mark.parametrize(
+    "left_side,lower,transpose_a",
+    list(itertools.product([True, False], repeat=3)),
+)
+def test_solve_triangular_combinations(left_side, lower, transpose_a):
+    rng = np.random.default_rng(9)
+    t, m = 24, 5
+    a = np.linalg.cholesky(random_psd(rng, 2, t))
+    if not lower:
+        a = np.swapaxes(a, -1, -2)
+    b = rng.standard_normal((2, t, m) if left_side else (2, m, t))
+    x = np.asarray(solve_triangular(
+        jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32),
+        left_side=left_side, lower=lower, transpose_a=transpose_a,
+    ))
+    op = np.swapaxes(a, -1, -2) if transpose_a else a
+    want = (np.linalg.solve(op, b) if left_side
+            else np.swapaxes(np.linalg.solve(np.swapaxes(op, -1, -2),
+                                             np.swapaxes(b, -1, -2)), -1, -2))
+    np.testing.assert_allclose(x, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("t", [1, 7, 45, 128])
+def test_logdet_from_chol_vs_slogdet(t):
+    rng = np.random.default_rng(t)
+    k = random_psd(rng, 4, t)
+    l = jnp.asarray(np.linalg.cholesky(k), jnp.float32)
+    got = np.asarray(logdet_from_chol(l))
+    sign, want = np.linalg.slogdet(k)
+    assert np.all(sign > 0)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(
+        np.asarray(slogdet_psd(jnp.asarray(k, jnp.float32))), want,
+        rtol=1e-5,
+    )
 
 
 def test_cholesky_gram_conditioning_regime():
@@ -63,24 +215,6 @@ def test_cholesky_near_singular_probe():
     assert np.isfinite(float(ld[0, 0]))
     ld64 = np.linalg.slogdet(np.asarray(k[0, 0]))[1]
     assert abs(float(ld[0, 0]) - ld64) / abs(ld64) < 1e-3
-
-
-def test_gram_chol_fused_matches_composition():
-    rng = np.random.default_rng(2)
-    b, z, t = 3, 2, 20
-    times = np.sort(rng.uniform(0, 45, (b, t)), axis=-1).astype(np.float32)
-    mask = np.ones((b, t), bool)
-    mask[0, 15:] = False
-    mask[2, 10:] = False
-    ls = np.array([9.0, 3.0], np.float32)
-    got = gram_chol_fused(
-        jnp.asarray(times), jnp.asarray(ls), mask=jnp.asarray(mask)
-    )
-    kb = kernels.gram_bank(
-        jnp.asarray(times), jnp.asarray(ls), mask=jnp.asarray(mask)
-    )
-    want = np.linalg.cholesky(np.asarray(kb, np.float64))
-    np.testing.assert_allclose(np.asarray(got), want, atol=2e-5)
 
 
 def test_cholesky_custom_vjp_matches_jax_native():
@@ -107,60 +241,6 @@ def test_cholesky_custom_vjp_matches_jax_native():
     )
 
 
-@pytest.mark.parametrize("t", [512, 768, 200])
-def test_tri_sandwich_matches_dense(t):
-    """The block-triangular triple product (TPU chol-VJP route) must equal
-    the dense X^T w X einsum — incl. the t % 256 != 0 dense fallback."""
-    from gpvae_tpu.ops import chol as chol_mod
-
-    rng = np.random.default_rng(7)
-    k = random_psd(rng, 2, t)
-    x64 = np.linalg.inv(np.linalg.cholesky(k))
-    w64 = rng.standard_normal((2, t, t))
-    w64 = 0.5 * (w64 + w64.swapaxes(-1, -2))
-    got = np.asarray(chol_mod._tri_sandwich(
-        jnp.asarray(x64, jnp.float32), jnp.asarray(w64, jnp.float32)
-    ))
-    want = np.swapaxes(x64, -1, -2) @ w64 @ x64
-    err = np.abs(got - want).max() / np.abs(want).max()
-    assert err < 5e-6, err
-    if t % 256 == 0:
-        # the blocked path mirrors k21 and symmetrizes the diagonal
-        # blocks, so the assembled gradient is exactly symmetric
-        np.testing.assert_allclose(got, np.swapaxes(got, -1, -2), atol=0)
-
-
-@pytest.mark.parametrize("dense_cotangent", [False, True])
-def test_phi_w_blocks_matches_dense(dense_cotangent):
-    """Blocked w = sym(phi(L^T L_bar)) must equal the dense formula —
-    including for cotangents with a nonzero upper triangle (whose b12
-    block only ever enters the phi-discarded upper product block)."""
-    from gpvae_tpu.ops import chol as chol_mod
-
-    t = 512
-    rng = np.random.default_rng(11)
-    k = random_psd(rng, 2, t)
-    l64 = np.linalg.cholesky(k)
-    lbar = rng.standard_normal((2, t, t))
-    if not dense_cotangent:
-        lbar = np.tril(lbar)
-    l32, lb32 = jnp.asarray(l64, jnp.float32), jnp.asarray(lbar, jnp.float32)
-    w11, w21, w22 = chol_mod._phi_w_blocks(l32, lb32)
-    h = t // 2
-    got = np.zeros((2, t, t), np.float32)
-    got[:, :h, :h] = np.asarray(w11)
-    got[:, h:, :h] = np.asarray(w21)
-    got[:, :h, h:] = np.asarray(w21).swapaxes(-1, -2)
-    got[:, h:, h:] = np.asarray(w22)
-
-    m = np.swapaxes(np.asarray(l32, np.float64), -1, -2) @ np.asarray(
-        lb32, np.float64)
-    p = np.tril(m) - 0.5 * np.tril(np.triu(m))
-    want = 0.5 * (p + np.swapaxes(p, -1, -2))
-    err = np.abs(got - want).max() / np.abs(want).max()
-    assert err < 5e-6, err
-
-
 def test_solve_triangular_roundtrip():
     rng = np.random.default_rng(4)
     k = random_psd(rng, 5, 30)
@@ -181,428 +261,4 @@ def test_logdet_from_chol_masked_padding_contributes_zero():
     ld_s = logdet_from_chol(jnp.linalg.cholesky(k_short))
     np.testing.assert_allclose(
         np.asarray(ld_m), np.asarray(ld_s), atol=1e-10
-    )
-
-
-def test_chol_inv_fused_kernel():
-    from gpvae_tpu.ops.pallas_chol import chol_inv_small_batched
-
-    rng = np.random.default_rng(11)
-    k = random_psd(rng, 5, 40)
-    l, x = chol_inv_small_batched(jnp.asarray(k, jnp.float32))
-    want_l = np.linalg.cholesky(k)
-    np.testing.assert_allclose(np.asarray(l), want_l, rtol=2e-4, atol=2e-4)
-    roundtrip = np.asarray(x) @ want_l
-    np.testing.assert_allclose(
-        roundtrip, np.broadcast_to(np.eye(40), roundtrip.shape), atol=5e-4
-    )
-
-
-@pytest.mark.parametrize("t", [128, 200, 384])
-def test_cholesky_blocked_fused_vs_oracle(t):
-    """The streaming panel+trailing Pallas path (ops/pallas_trail.py)."""
-    from gpvae_tpu.ops.chol import cholesky_blocked_fused
-
-    rng = np.random.default_rng(2)
-    k = random_psd(rng, 3, t)
-    got = np.asarray(cholesky_blocked_fused(jnp.asarray(k, jnp.float32)))
-    want = np.linalg.cholesky(k)
-    err = np.abs(got - want).max() / np.abs(want).max()
-    assert err < 5e-5, err
-    assert np.allclose(got, np.tril(got))
-
-
-def test_cholesky_fused_gradient_matches_xla():
-    """The shared custom VJP applies regardless of forward method."""
-    rng = np.random.default_rng(3)
-    k = jnp.asarray(random_psd(rng, 2, 160), jnp.float32)
-    w = jnp.asarray(rng.standard_normal(k.shape[-2:]), jnp.float32)
-
-    def loss(method):
-        return lambda kk: jnp.sum(cholesky(kk, method=method) * w)
-
-    g_fused = jax.grad(loss("blocked_fused"))(k)
-    g_xla = jax.grad(loss("xla"))(k)
-    np.testing.assert_allclose(
-        np.asarray(g_fused), np.asarray(g_xla), rtol=2e-3, atol=2e-4
-    )
-
-
-@pytest.mark.parametrize("t", [100, 256, 520])
-def test_tri_inv_blocked_vs_oracle(t):
-    """Block-recursive triangular inverse (the large-T solve route)."""
-    from gpvae_tpu.ops import pallas_tri
-
-    rng = np.random.default_rng(4)
-    k = random_psd(rng, 3, t)
-    l = np.linalg.cholesky(k).astype(np.float32)
-    x = np.asarray(pallas_tri.tri_inv(jnp.asarray(l)))
-    want = np.linalg.inv(l.astype(np.float64))
-    err = np.abs(x - want).max() / np.abs(want).max()
-    assert err < 1e-4, err
-    assert np.allclose(x, np.tril(x))
-    # and through the differentiable entry with a gradient
-    g = jax.grad(
-        lambda ll: jnp.sum(pallas_tri.tri_inv(ll) * jnp.cos(
-            jnp.arange(ll.size).reshape(ll.shape)))
-    )(jnp.asarray(l))
-    assert np.isfinite(np.asarray(g)).all()
-
-
-@pytest.mark.parametrize("t", [100, 192, 320, 1024])
-def test_tri_inv_flat_vs_blocked_and_oracle(t):
-    """The level-merged batched triangular inverse (round 4: one lane call
-    for all diagonal 64-blocks instead of T/64 sequential calls — measured
-    1.45 -> 0.23 ms at [2, 1024, 1024] on v5e) must agree with the
-    recursion and the fp64 oracle, including at non-power-of-two T
-    (identity padding)."""
-    from gpvae_tpu.ops import pallas_tri
-
-    rng = np.random.default_rng(7)
-    k = random_psd(rng, 3, t)
-    l64 = np.linalg.cholesky(k)
-    l = jnp.asarray(l64, jnp.float32)
-    x = np.asarray(pallas_tri.tri_inv_flat(l))
-    xb = np.asarray(pallas_tri.tri_inv_blocked(l))
-    want = np.linalg.inv(l64)
-    scale = np.abs(want).max()
-    assert np.abs(x - want).max() / scale < 1e-4
-    assert np.abs(x - xb).max() / scale < 1e-5  # same math, same answer
-    assert np.allclose(x, np.tril(x))
-
-
-def test_tri_inv_awkward_t_dispatches_blocked():
-    """Far from a power of two (T=136 -> flat would pad to 256, 6.7x the
-    merge FLOPs) tri_inv routes to the 64-aligned block recursion; the
-    answer must match the fp64 oracle either way."""
-    from gpvae_tpu.ops import pallas_tri
-
-    assert pallas_tri._flat_pad_overhead(136) > 2.0
-    assert pallas_tri._flat_pad_overhead(1024) == 1.0
-    rng = np.random.default_rng(11)
-    k = random_psd(rng, 2, 136)
-    l64 = np.linalg.cholesky(k)
-    x = np.asarray(pallas_tri.tri_inv(jnp.asarray(l64, jnp.float32)))
-    want = np.linalg.inv(l64)
-    assert np.abs(x - want).max() / np.abs(want).max() < 1e-4
-
-
-def test_chol_inv_256_parts_matches_assembled():
-    """The parts-native 256-wide diagonal block (schur128/inv21_128 glue,
-    TPU-only dispatch in chol_inv_parts) must reproduce the assembled
-    chol_and_inv slices — pinned here in interpret mode so a glue edit
-    can't silently break the nb=256 path that only dispatches on_tpu()."""
-    from gpvae_tpu.ops import chol
-
-    rng = np.random.default_rng(12)
-    d = jnp.asarray(random_psd(rng, 2, 256), jnp.float32)
-    l11, a21, l22, i11, i21, i22 = chol._chol_inv_256_parts(d)
-    l_full, inv_full = chol.chol_and_inv(d)
-    want = (
-        l_full[:, :128, :128], l_full[:, 128:, :128], l_full[:, 128:, 128:],
-        inv_full[:, :128, :128], inv_full[:, 128:, :128],
-        inv_full[:, 128:, 128:],
-    )
-    got = (l11, a21, l22, i11, i21, i22)
-    for g, w in zip(got, want):
-        w = np.asarray(w)
-        err = np.abs(np.asarray(g) - w).max() / np.abs(w).max()
-        assert err < 1e-5, err
-
-
-def test_solve_triangular_inverse_route_large_t():
-    from gpvae_tpu.ops.trsm import solve_triangular
-
-    rng = np.random.default_rng(5)
-    k = random_psd(rng, 2, 200)
-    l = jnp.asarray(np.linalg.cholesky(k), jnp.float32)
-    b = jnp.asarray(rng.standard_normal((2, 200, 7)), jnp.float32)
-    x_inv = solve_triangular(l, b, via_inverse=True)
-    x_sub = solve_triangular(l, b, via_inverse=False)
-    np.testing.assert_allclose(
-        np.asarray(x_inv), np.asarray(x_sub), rtol=2e-3, atol=2e-3
-    )
-
-
-@pytest.mark.parametrize("t,method", [
-    (200, "blocked_inplace"), (384, "blocked_inplace"),
-    (520, "blocked_inplace"),
-    (192, "blocked_fused_64"), (256, "blocked_fused_64"),
-])
-def test_cholesky_round3_paths_vs_oracle(t, method):
-    """Round-3 large-T paths: the in-place left-looking factorization
-    (ops/pallas_big.py) and the 64-wide fused panel path.  With
-    FAST_DOTS=False (the default since the round-3 A/B: the 3-pass bf16
-    dots bought ~4% and cost 200x factor accuracy on correlated grams)
-    every contraction is HIGHEST precision, so these sit in the ~1e-5
-    family; 5e-5 is a safe bound well inside the ELBO-level 1e-4
-    north-star budget (BASELINE.md)."""
-    from gpvae_tpu.ops.chol import _cholesky_fwd_impl
-
-    rng = np.random.default_rng(5)
-    k = random_psd(rng, 3, t)
-    got = np.asarray(_cholesky_fwd_impl(jnp.asarray(k, jnp.float32), method))
-    want = np.linalg.cholesky(k)
-    err = np.abs(got - want).max() / np.abs(want).max()
-    assert err < 5e-5, (method, t, err)
-    assert np.allclose(got, np.tril(got))
-
-
-def test_cholesky_inplace_gradient_matches_xla():
-    from gpvae_tpu.ops.chol import cholesky
-
-    rng = np.random.default_rng(6)
-    k = jnp.asarray(random_psd(rng, 2, 200), jnp.float32)
-    w = jnp.asarray(rng.standard_normal(k.shape[-2:]), jnp.float32)
-
-    def loss(method):
-        return lambda kk: jnp.sum(cholesky(kk, method=method) * w)
-
-    g = jax.grad(loss("blocked_inplace"))(k)
-    g_xla = jax.grad(loss("xla"))(k)
-    np.testing.assert_allclose(
-        np.asarray(g), np.asarray(g_xla), rtol=2e-3, atol=2e-4
-    )
-
-
-@pytest.mark.parametrize("blocked", [True, False])
-@pytest.mark.parametrize("t", [24, 48, 64])
-def test_lane_body_arms_vs_oracle(blocked, t):
-    """Both lane-kernel bodies (flat column recurrence vs the blocked
-    8-column-panel variant, BLOCKED_LANE_BODY) against the fp64 oracle —
-    factor AND fused inverse.  The flag is read at trace time and jit
-    caches do not key on it, so each arm clears the cache around the
-    toggle (benchmarks/prof_lane.py uses subprocesses for the same
-    reason)."""
-    from gpvae_tpu.ops import pallas_chol
-
-    rng = np.random.default_rng(7)
-    k = random_psd(rng, 5, t)
-    prev = pallas_chol.BLOCKED_LANE_BODY
-    pallas_chol.BLOCKED_LANE_BODY = blocked
-    jax.clear_caches()
-    try:
-        l, x = pallas_chol.chol_inv_small_batched(jnp.asarray(k, jnp.float32))
-        lf = pallas_chol.chol_small_batched(jnp.asarray(k, jnp.float32))
-    finally:
-        pallas_chol.BLOCKED_LANE_BODY = prev
-        jax.clear_caches()
-    want = np.linalg.cholesky(k)
-    np.testing.assert_allclose(np.asarray(l), want, rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(lf), want, rtol=2e-4, atol=2e-4)
-    inv_want = np.linalg.inv(want)
-    scale = np.abs(inv_want).max()
-    assert np.abs(np.asarray(x) - inv_want).max() / scale < 5e-4
-
-
-def test_chol_wide_matches_chol_and_inv_factor():
-    """chol_wide (the inverse-free recursion for FINAL diagonal blocks)
-    produces the same factor values as chol_and_inv at every width."""
-    from gpvae_tpu.ops import chol as chol_lib
-
-    rng = np.random.default_rng(11)
-    for t in (64, 128, 256):
-        k = jnp.asarray(random_psd(rng, 3, t), jnp.float32)
-        l_wide = chol_lib.chol_wide(k)
-        l_full = chol_lib.chol_and_inv(k)[0]
-        np.testing.assert_array_equal(np.asarray(l_wide), np.asarray(l_full))
-        want = np.linalg.cholesky(np.asarray(k, np.float64))
-        err = np.abs(np.tril(np.asarray(l_wide)) - want).max()
-        assert err / np.abs(want).max() < 5e-4
-
-
-def _run_deferred_plain(k, nb):
-    from gpvae_tpu.ops import chol as chol_lib
-    from gpvae_tpu.ops import pallas_big
-
-    num_blocks = k.shape[-1] // nb
-    ld, ldi = chol_lib.chol_and_inv(k[:, :nb, :nb])
-    l = pallas_big.init_l(k, ld, ldi, nb)
-    sub_prev = iparts = None
-    for b in range(1, num_blocks):
-        if sub_prev is None:
-            diag, sub = pallas_big.hist_panel_split(l, k, b, nb)
-        else:
-            l, diag, sub = pallas_big._hist2_defer_jit(
-                l, k, sub_prev, *iparts, b, nb, True
-            )
-        if b == num_blocks - 1:
-            fparts = chol_lib.chol_parts(diag)
-        else:
-            p11, pa21, p22, j11, j21, j22 = chol_lib.chol_inv_parts(diag)
-            fparts = (p11, pa21, p22)
-            sub_prev, iparts = sub, (j11, j21, j22)
-        l = pallas_big.diag_parts_writeback(l, fparts, b, nb)
-    return l
-
-
-def test_deferred_column_flow_vs_oracle():
-    """The deferred-column in-place flow (column writeback fused into the
-    next step's history kernel, aliased l) against the fp64 oracle —
-    num_blocks=4 exercises first/defer/final step shapes.  The driver takes
-    this path on TPU; here the kernels run in interpret mode directly."""
-    rng = np.random.default_rng(12)
-    nb, t = 64, 256
-    k = jnp.asarray(random_psd(rng, 4, t), jnp.float32)
-    l = np.asarray(_run_deferred_plain(k, nb))
-    want = np.linalg.cholesky(np.asarray(k, np.float64))
-    err = np.abs(np.tril(l) - want).max() / np.abs(want).max()
-    assert err < 5e-4, err
-
-
-def test_deferred_gram_flow_vs_oracle():
-    from gpvae_tpu.ops import chol as chol_lib
-    from gpvae_tpu.ops import pallas_big
-
-    rng = np.random.default_rng(13)
-    nb, t, n = 64, 256, 8
-    tt = np.sort(rng.uniform(0, 50, (n, t)), -1).astype(np.float32)
-    ls = jnp.full((n,), 5.0, jnp.float32)
-    var = jnp.ones((n,), jnp.float32)
-    mask = jnp.ones((n, t), jnp.float32)
-    kk = np.asarray(
-        kernels.gram(
-            jnp.asarray(tt), ls[:, None, None], noise=1e-2,
-            variance=var[:, None, None],
-        ),
-        np.float64,
-    )
-    want = np.linalg.cholesky(kk)
-    k00 = kernels.gram(
-        jnp.asarray(tt[:, :nb]), ls[:, None, None], noise=1e-2,
-        variance=var[:, None, None],
-    )
-    l11, a21, l22, i11, i21, i22 = chol_lib.chol_inv_parts(k00)
-    lsb = jnp.broadcast_to(ls[:, None], (n, 128))
-    varb = jnp.broadcast_to(var[:, None], (n, 128))
-    l = pallas_big._init0_parts_jit(l11, a21, l22, t, nb, True)
-    sub_prev = None
-    iparts = (i11, i21, i22)
-    for b in range(1, t // nb):
-        if b == 1:
-            l, diag, sub = pallas_big._gram_defer1_jit(
-                l, jnp.asarray(tt), mask, lsb, varb, *iparts, nb, "rbf",
-                1e-2, True,
-            )
-        else:
-            l, diag, sub = pallas_big._gram_hist2_defer_jit(
-                l, jnp.asarray(tt), mask, lsb, varb, sub_prev, *iparts,
-                b, nb, "rbf", 1e-2, True,
-            )
-        if b == t // nb - 1:
-            fparts = chol_lib.chol_parts(diag)
-        else:
-            p11, pa21, p22, j11, j21, j22 = chol_lib.chol_inv_parts(diag)
-            fparts = (p11, pa21, p22)
-            sub_prev, iparts = sub, (j11, j21, j22)
-        l = pallas_big.diag_parts_writeback(l, fparts, b, nb)
-    err = np.abs(np.tril(np.asarray(l)) - want).max() / np.abs(want).max()
-    # cond(K) ~ 6.5e3 here; same fp32 error family as the non-deferred
-    # flow (1.6e-5 measured on identical inputs)
-    assert err < 2e-4, err
-
-
-def test_gram_chol_inv_128_parts_vs_xla_gram():
-    """The fully-fused k00 parts (gram built in the lane + Schur kernels,
-    inverse never assembled) match chol_and_inv of the XLA-built gram."""
-    from gpvae_tpu.ops import chol as chol_lib
-    from gpvae_tpu.ops import pallas_big
-
-    rng = np.random.default_rng(21)
-    n = 8
-    tt = np.sort(rng.uniform(0, 30, (n, 128)), -1).astype(np.float32)
-    ls = jnp.asarray(rng.uniform(2.0, 8.0, n).astype(np.float32))
-    var = jnp.asarray(rng.uniform(0.5, 2.0, n).astype(np.float32))
-    mask = (rng.random((n, 128)) < 0.9).astype(np.float32)
-    lsb = jnp.broadcast_to(ls[:, None], (n, 128))
-    varb = jnp.broadcast_to(var[:, None], (n, 128))
-    l11, a21, l22, i11, i21, i22 = pallas_big.gram_chol_inv_128_parts(
-        jnp.asarray(tt), jnp.asarray(mask), lsb, varb, "rbf", 1e-2,
-    )
-    k00 = kernels.gram(
-        jnp.asarray(tt), ls[:, None, None], noise=1e-2,
-        variance=var[:, None, None], mask=jnp.asarray(mask) > 0.5,
-    )
-    # compare against the fp64 oracle, NOT another fp32 path: at
-    # cond(K) ~ 1.1e4 two correct fp32 factorizations legitimately
-    # disagree by ~3e-2 on the worst matrix (measured: chol_and_inv under
-    # the x64 CPU env drifts 2.6e-2 from fp64 here while these parts stay
-    # at 2.7e-5)
-    want = np.linalg.cholesky(np.asarray(k00, np.float64))
-    l_got = np.block([
-        [np.asarray(l11), np.zeros((n, 64, 64), np.float32)],
-        [np.asarray(a21), np.asarray(l22)],
-    ])
-    i_got = np.block([
-        [np.asarray(i11), np.zeros((n, 64, 64), np.float32)],
-        [np.asarray(i21), np.asarray(i22)],
-    ])
-    assert np.abs(l_got - want).max() / np.abs(want).max() < 2e-4
-    i_want = np.linalg.inv(want)
-    scale = np.abs(i_want).max()
-    assert np.abs(i_got - i_want).max() / scale < 5e-4
-
-
-def test_diag_slab_mosaic_legal():
-    """diag_extract's batch slab must be Mosaic-legal: a multiple of 8,
-    or the whole batch, or None (gather fallback) — N=170 used to pick
-    its divisor 34 and fail to lower on TPU; the whole-array fallback
-    must also respect the scoped-VMEM budget (N=170 at T=768 measured a
-    21.4 MB stack allocation against the 16 MB limit)."""
-    from gpvae_tpu.ops import pallas_big
-
-    for n in (2, 8, 10, 16, 48, 128, 170, 512, 1000):
-        m = pallas_big._diag_slab(n)
-        assert m is None or m % 8 == 0 or m == n, (n, m)
-        if m is not None:
-            assert n % m == 0 and m <= max(
-                48, (pallas_big._SLAB_BYTES // 2) // (4 * 128 * 128)
-            ), (n, m)
-    assert pallas_big._diag_slab(170) is None  # gather fallback
-    # the fallback still produces the right values (CPU path)
-    rng = np.random.default_rng(5)
-    l = jnp.asarray(rng.standard_normal((3, 128, 128)), jnp.float32)
-    got = pallas_big.diag_extract(l)
-    np.testing.assert_array_equal(
-        np.asarray(got), np.asarray(jnp.diagonal(l, axis1=-2, axis2=-1))
-    )
-
-
-def test_nb_clamp_for_large_t():
-    """T > 2048 clamps the in-place block width to 128: at T=4096 the
-    nb=256 defer kernels' resident history row exceeds the 16 MB scoped
-    VMEM limit on-chip (round-5 fix; driven at [16, 4096, 4096] on the
-    real TPU).  Also pins the clamp's no-op range."""
-    from gpvae_tpu.ops import pallas_big
-
-    assert pallas_big._nb_for_t(1024, 256) == 256
-    assert pallas_big._nb_for_t(2048, 256) == 256
-    assert pallas_big._nb_for_t(4096, 256) == 128
-    assert pallas_big._nb_for_t(4096, 128) == 128
-
-
-def test_zero_upper_contract_interpret():
-    """zero_upper=False must leave diagonal + lower tiles bit-identical to
-    the zero-filled op (the lower-only consumer contract: logdet diag
-    extraction, tri_inv, trsm, the VJP triple product read only those).
-    On the interpret path the upper stays zero-filled either way; the
-    on-chip equality of the written region is driven by the round-5
-    verify session."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from gpvae_tpu.ops import pallas_big
-
-    rng = np.random.default_rng(0)
-    n, t = 4, 256
-    times = jnp.asarray(
-        np.sort(rng.uniform(0, 60, (n, t)), -1).astype(np.float32)
-    )
-    ls = jnp.full((n,), 9.0, jnp.float32)
-    var = jnp.ones((n,), jnp.float32)
-    l_full = pallas_big.cholesky_gram_inplace(times, ls, None, var)
-    l_low = pallas_big.cholesky_gram_inplace(times, ls, None, var,
-                                             zero_upper=False)
-    np.testing.assert_array_equal(
-        np.tril(np.asarray(l_low)), np.tril(np.asarray(l_full))
     )
